@@ -33,8 +33,8 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.config import OFDMConfig
-    from jrc_tpu.ops import channel, cplx as cx, radar
+    from jrc.config import OFDMConfig
+    from jrc.ops import channel, cplx as cx, radar
 
     cfg = OFDMConfig()
     r, v, az, rcs = (float(x) for x in args.target.split(":"))

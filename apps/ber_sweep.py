@@ -30,9 +30,9 @@ def main(argv=None):
         jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.models import evaluation
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.models import evaluation
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     cfg = OFDMConfig()
     mcs_list = [MCS[m] for m in args.mcs] if args.mcs else list(MCS)

@@ -67,9 +67,9 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.io.stream import BlockStreamer
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.io.stream import BlockStreamer
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     cfg = OFDMConfig()
     spec = FrameSpec(MCS[args.mcs], payload_bytes=args.payload_bytes,
@@ -83,8 +83,8 @@ def main(argv=None):
         p.error("--chan-est-csv requires --dynamic (NDP frames are "
                 "classified from their SIG field)")
     if args.demo:
-        from jrc_tpu.models import comm_link
-        from jrc_tpu.ops import channel
+        from jrc.models import comm_link
+        from jrc.ops import channel
 
         payload = jnp.asarray(make_payload(spec, bytes([2]) + b"comm_rx demo"))
         tx = comm_link.tx_frame(cfg, spec, payload, 1)
@@ -123,7 +123,7 @@ def main(argv=None):
 
     sink = None
     if args.udp_out:
-        from jrc_tpu.io.udp import UdpPduSink
+        from jrc.io.udp import UdpPduSink
 
         sink = UdpPduSink(args.udp_out)
 
@@ -167,9 +167,9 @@ def _run_sharded(args, cfg, spec, cap, sink) -> int:
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.models import streaming
-    from jrc_tpu.parallel import streaming as pstream
-    from jrc_tpu.runtime import SC16_SCALE
+    from jrc.models import streaming
+    from jrc.parallel import streaming as pstream
+    from jrc.runtime import SC16_SCALE
 
     if cap.dtype == np.int16:  # sc16 file: dequantize for the sharded step
         cap = ((cap.astype(np.float32) / SC16_SCALE) @ [1, 1j]
@@ -237,7 +237,7 @@ def _report(res, sink, chan_est_csv=None) -> int:
         if sink is not None and crc[k]:
             sink.send(payload[k][: int(plen[k])])
         if chan_est_csv and is_ndp:
-            from jrc_tpu.utils.logging import write_chan_est_csv
+            from jrc.utils.logging import write_chan_est_csv
 
             write_chan_est_csv(chan_est_csv, np.asarray(res.chan_est[k]))
             n_ndp += 1

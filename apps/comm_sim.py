@@ -53,12 +53,12 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.models import comm_link
-    from jrc_tpu.ops import decoder as dec_ops
-    from jrc_tpu.ops import precoder
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
-    from jrc_tpu.utils.logging import CommLog
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.models import comm_link
+    from jrc.ops import decoder as dec_ops
+    from jrc.ops import precoder
+    from jrc.ops.encoder import FrameSpec, make_payload
+    from jrc.utils.logging import CommLog
 
     cfg = OFDMConfig()
     data_spec = FrameSpec(MCS[args.mcs], payload_bytes=args.payload_bytes,
@@ -75,12 +75,12 @@ def main(argv=None):
     udp_src = udp_sink = None
     spec_cache = {}
     if args.udp_in:
-        from jrc_tpu.io.udp import UdpPduSource
+        from jrc.io.udp import UdpPduSource
 
         udp_src = UdpPduSource(args.udp_in)
         print(f"udp-in: listening on {udp_src.addr[0]}:{udp_src.addr[1]}")
     if args.udp_out:
-        from jrc_tpu.io.udp import UdpPduSink
+        from jrc.io.udp import UdpPduSink
 
         udp_sink = UdpPduSink(args.udp_out)
 

@@ -74,13 +74,13 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.io.backend import SimTrx, TrxSession
-    from jrc_tpu.models import comm_link, jrc_trx
-    from jrc_tpu.ops import channel, cplx as cx, ofdm, radar
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
-    from jrc_tpu.utils.logging import CommLog, RadarLog
-    from jrc_tpu.viz.heatmap import render_heatmap
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.io.backend import SimTrx, TrxSession
+    from jrc.models import comm_link, jrc_trx
+    from jrc.ops import channel, cplx as cx, ofdm, radar
+    from jrc.ops.encoder import FrameSpec, make_payload
+    from jrc.utils.logging import CommLog, RadarLog
+    from jrc.viz.heatmap import render_heatmap
 
     cfg = OFDMConfig()
     r, v, az, rcs = (float(x) for x in args.target.split(":"))
@@ -94,12 +94,12 @@ def main(argv=None):
     udp_src = udp_sink = None
     spec_cache = {}
     if args.udp_in:
-        from jrc_tpu.io.udp import UdpPduSource
+        from jrc.io.udp import UdpPduSource
 
         udp_src = UdpPduSource(args.udp_in)
         print(f"udp-in: listening on {udp_src.addr[0]}:{udp_src.addr[1]}")
     if args.udp_out:
-        from jrc_tpu.io.udp import UdpPduSink
+        from jrc.io.udp import UdpPduSink
 
         udp_sink = UdpPduSink(args.udp_out)
 
@@ -143,7 +143,7 @@ def main(argv=None):
     h_of_cache = {}
     live_hm = live_tp = None
     if args.live:
-        from jrc_tpu.viz.live import LiveHeatmap, LiveTimePlot
+        from jrc.viz.live import LiveHeatmap, LiveTimePlot
 
         if args.heatmap:
             live_hm = LiveHeatmap(radar.range_axis(cfg.fft_len, cfg.sample_rate),

@@ -63,13 +63,13 @@ def main(argv=None):
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.models import radar_chain
-    from jrc_tpu.ops import channel, radar
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
-    from jrc_tpu.ops import cplx as cx
-    from jrc_tpu.utils.logging import RadarLog, append_radar_capture_csv
-    from jrc_tpu.viz.heatmap import render_heatmap
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.models import radar_chain
+    from jrc.ops import channel, radar
+    from jrc.ops.encoder import FrameSpec, make_payload
+    from jrc.ops import cplx as cx
+    from jrc.utils.logging import RadarLog, append_radar_capture_csv
+    from jrc.viz.heatmap import render_heatmap
 
     cfg = OFDMConfig()
     spec = FrameSpec(MCS[args.mcs], payload_bytes=args.payload_bytes,
@@ -83,7 +83,7 @@ def main(argv=None):
         if args.background_removal else None
     live = None
     if args.live and args.heatmap:
-        from jrc_tpu.viz.live import LiveHeatmap
+        from jrc.viz.live import LiveHeatmap
 
         live = LiveHeatmap(radar.range_axis(cfg.fft_len, cfg.sample_rate),
                            cfg.angle_axis(16), path=args.heatmap)
@@ -136,8 +136,7 @@ def main(argv=None):
 
     if last is not None and args.heatmap:
         rb = np.linspace(0, channel.C_LIGHT * cfg.fft_len / (2 * cfg.sample_rate), 512)
-        # power computed in-graph: complex device->host transfers are
-        # unimplemented on some TPU runtimes
+        # power computed in-graph: only the real map crosses to the host
         power = np.asarray(jax.jit(cx.abs2)(last.ra_map))
         render_heatmap(power, rb, cfg.angle_axis(16), path=args.heatmap)
         print(f"heatmap -> {args.heatmap}; log -> {args.radar_log}")

@@ -4,7 +4,7 @@ third measurement point (1 chip / 1 host / N≥2 hosts).
 
 Runs the sharded streaming RX via scripts/multihost_rx.py --bench at
 1 process and 2 processes (ONE device each, one 16k block per device —
-weak scaling), with jax.distributed + Gloo standing in for DCN on
+weak scaling), with jax.distributed + Gloo standing in for the inter-host network on
 localhost. One device per process matches the 2-core host: at 2 processes
 each rank effectively owns a core, so BOTH wall-clock weak scaling and the
 per-device process-CPU-time are meaningful. The 2-process point's
@@ -12,7 +12,7 @@ per-device work INCLUDES the cross-process halo/psum leg (Gloo socket
 spin counts as CPU, so the efficiency is a lower bound — on real separate
 hosts the exchange overlaps each host's own compute).
 
-Appends a "multihost" section to SCALING_r05.json.
+Appends a "multihost" section to chiprun_out/scaling.json.
 """
 from __future__ import annotations
 
@@ -38,6 +38,7 @@ def run_config(n_proc: int, block_len: int) -> list[dict]:
     port = _free_port()
     env = dict(os.environ)
     env.pop("XLA_FLAGS", None)
+    env["JAX_PLATFORMS"] = "cpu"  # children never open a GPU
     procs = [
         subprocess.Popen(
             [sys.executable, SCRIPT,
@@ -97,7 +98,7 @@ def main() -> int:
     section = {
         "method": (
             "weak scaling across PROCESSES (jax.distributed + Gloo as the "
-            "DCN stand-in): the same jitted sharded step at 1 process x 1 "
+            "inter-host network stand-in): the same jitted sharded step at 1 process x 1 "
             "device vs 2 processes x 1 device, one block per device. "
             "HEADLINE = cross_host_work_efficiency_lb: median per-device "
             "process-CPU-time ratio — additive across threads and counting "
@@ -110,14 +111,15 @@ def main() -> int:
             "threads contend for the same cores, so wall-clock measures "
             "co-location contention (it grows with block size at equal "
             "per-device CPU), not the design; real multi-host rigs give "
-            "each host its own cores and compiled ICI/DCN collectives."
+            "each host its own cores and compiled cross-device and cross-host collectives."
         ),
         "points": points,
         "best_cross_host_work_efficiency_lb": round(best, 3),
         "meets_80pct_target": bool(best >= 0.8),
     }
-    path = os.path.join(REPO, "SCALING_r05.json")
-    data = json.load(open(path))
+    path = os.path.join(REPO, "chiprun_out", "scaling.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    data = json.load(open(path)) if os.path.exists(path) else {}
     data["multihost"] = section
     with open(path, "w") as f:
         json.dump(data, f, indent=1)

@@ -1,5 +1,5 @@
-"""Scaling measurement for the time-block sharded streaming RX
-(VERDICT r3 item 2 → SCALING_r04; VERDICT r4 item 7 methodology → r05).
+"""Scaling measurement for the time-block sharded streaming RX, written
+to chiprun_out/scaling.json.
 
 Weak scaling on the virtual CPU mesh: one 32k-sample block per device, so
 ideal scaling keeps step time constant as devices are added. Each mesh size
@@ -45,7 +45,7 @@ Definitions (medians):
   CPU-time fraction spent on halo exchange/psum machinery. XLA:CPU worker
   threads spin-wait at collective barriers, so waiting counts as work:
   both numbers are UPPER bounds on true mesh cost; on real multi-chip
-  hardware the exchange rides ICI while the core computes.
+  hardware the exchange rides the interconnect while the core computes.
 
 Usage: python scripts/measure_scaling.py            # driver, writes JSON
        python scripts/measure_scaling.py --one N    # single mesh size
@@ -87,12 +87,12 @@ def run_one(n_dev: int) -> int:
     import numpy as np
     import jax.numpy as jnp
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.models import comm_link, streaming
-    from jrc_tpu.ops import channel, cplx as cx
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
-    from jrc_tpu.parallel import streaming as pstream
-    from jrc_tpu.utils.cache import enable_compile_cache
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.models import comm_link, streaming
+    from jrc.ops import channel, cplx as cx
+    from jrc.ops.encoder import FrameSpec, make_payload
+    from jrc.parallel import streaming as pstream
+    from jrc.utils.cache import enable_compile_cache
 
     enable_compile_cache()
     cfg = OFDMConfig()
@@ -194,6 +194,7 @@ PASSES = 3  # interleaved sweeps: fresh subprocess per (pass, N), samples
 
 def main() -> int:
     env = dict(os.environ)
+    env["JAX_PLATFORMS"] = "cpu"  # children never open a GPU
     flags = env.get("XLA_FLAGS", "")
     # one thread per device program: CPU-time attribution is per-device
     env["XLA_FLAGS"] = (flags + " --xla_cpu_multi_thread_eigen=false").strip()
@@ -297,7 +298,8 @@ def main() -> int:
         "points": rows,
     }
     path = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                        "SCALING_r05.json")
+                        "chiprun_out", "scaling.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
     # preserve sections owned by other measurement scripts (multihost)
     if os.path.exists(path):
         try:

@@ -1,4 +1,4 @@
-"""Pin golden BER/PER curves for all six MCS (VERDICT r2 item 6).
+"""Pin golden BER/PER curves for all six MCS.
 
 Runs models/evaluation.link_curve (full TX → AWGN channel → full RX chain,
 incl. detection/sync) at SNRs spanning each MCS's waterfall and writes
@@ -22,9 +22,9 @@ jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.models import evaluation
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.models import evaluation
+from jrc.ops.encoder import FrameSpec, make_payload
 
 # SNR grids straddle each MCS's waterfall (hard-decision Viterbi, LS est)
 SNR_GRID = {

@@ -23,10 +23,10 @@ def build_cases():
     import jax.numpy as jnp
     import numpy as np
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.models import comm_link
-    from jrc_tpu.ops import cplx as cx, precoder
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.models import comm_link
+    from jrc.ops import cplx as cx, precoder
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     cfg = OFDMConfig()
 

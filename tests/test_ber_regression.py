@@ -1,4 +1,4 @@
-"""BER/PER regression against pinned golden curves (VERDICT r2 item 6).
+"""BER/PER regression against pinned golden curves.
 
 The goldens (tests/golden_ber.json, written by scripts/pin_ber_golden.py)
 pin the full-chain link performance — TX → AWGN → detect/sync/equalize/
@@ -15,9 +15,9 @@ import os
 import jax.numpy as jnp
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.models import evaluation
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.models import evaluation
+from jrc.ops.encoder import FrameSpec, make_payload
 
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden_ber.json")
 

@@ -2,8 +2,8 @@
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, MCSParams, PacketParams, PacketType
-from jrc_tpu.ops import coding
+from jrc.config import MCS, MCSParams, PacketParams, PacketType
+from jrc.ops import coding
 from tests.golden import golden_conv_encode, golden_puncture_34, golden_scramble
 
 
@@ -120,7 +120,7 @@ def test_recover_scrambler_seed_all_seeds():
     import jax
     import jax.numpy as jnp
 
-    from jrc_tpu.ops.coding import recover_scrambler_seed, scramble
+    from jrc.ops.coding import recover_scrambler_seed, scramble
 
     zeros = jnp.zeros((127, 16), jnp.uint8)
     seeds = jnp.arange(1, 128, dtype=jnp.int32)

@@ -4,9 +4,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
-from jrc_tpu.models import comm_link
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.ops.encoder import FrameSpec, make_payload
+from jrc.models import comm_link
 
 CFG = OFDMConfig()
 

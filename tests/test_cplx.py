@@ -5,7 +5,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from jrc_tpu.ops import cplx as cx
+from jrc.ops import cplx as cx
 
 
 def rnd(shape, seed=0):

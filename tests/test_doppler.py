@@ -11,11 +11,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.io.backend import SimTrx, TrxSession
-from jrc_tpu.models import comm_link
-from jrc_tpu.ops import channel, cplx as cx, ofdm, radar
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.io.backend import SimTrx, TrxSession
+from jrc.models import comm_link
+from jrc.ops import channel, cplx as cx, ofdm, radar
+from jrc.ops.encoder import FrameSpec, make_payload
 
 CFG = OFDMConfig()
 SPEC = FrameSpec(MCS.QPSK_1_2, payload_bytes=30, packet_type=PacketType.NDP)

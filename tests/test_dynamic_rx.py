@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.ops import channel, dynamic_rx, sync
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
-from jrc_tpu.models import comm_link
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.ops import channel, dynamic_rx, sync
+from jrc.ops.encoder import FrameSpec, make_payload
+from jrc.models import comm_link
 
 CFG = OFDMConfig()
 MAXP = 128
@@ -80,7 +80,7 @@ def test_corrupted_sig_rejected():
 
 def test_dynamic_sta_tracking():
     """STA decision-directed tracking under the SIG-discovered MCS
-    (VERDICT r2 item 9; reference lib/mimo_ofdm_equalizer_impl.cc:500-592):
+    (reference lib/mimo_ofdm_equalizer_impl.cc:500-592):
     must decode cleanly and track a slow channel drift better than LS."""
     x, payload = _stream(MCS.QPSK_3_4, 96, b"\x02 sta dynamic" + bytes(83), snr_db=25.0)
     # impose a slow gain drift across the frame (decision-directed tracking

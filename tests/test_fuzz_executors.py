@@ -9,10 +9,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.models import comm_link, streaming
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.models import comm_link, streaming
+from jrc.ops import channel
+from jrc.ops.encoder import FrameSpec, make_payload
 
 CFG = OFDMConfig()
 BLOCK_LEN = 1 << 13
@@ -133,8 +133,8 @@ def test_streamer_random_chunking_matches_oracle(seed, wire):
     superblock boundaries), sc16 wire mixing quantized-complex pushes with
     native int16 pushes — the decoded (trigger, payload) set must equal the
     one-shot scan_rx oracle over the same capture."""
-    from jrc_tpu.io.stream import BlockStreamer
-    from jrc_tpu.runtime import SC16_SCALE
+    from jrc.io.stream import BlockStreamer
+    from jrc.runtime import SC16_SCALE
 
     rng = np.random.default_rng(100 + seed)
     spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=40, packet_type=PacketType.DATA)

@@ -1,4 +1,4 @@
-"""Hand-derived golden vectors per codec stage (VERDICT r3 item 8).
+"""Hand-derived golden vectors per codec stage.
 
 Unlike tests/golden.py (a numpy re-implementation of the reference
 algorithms — a shared misreading would pass both sides), every expected
@@ -9,10 +9,10 @@ documented inline so they can be re-checked against the cited lines.
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import MCS, PacketType
-from jrc_tpu.ops import coding, modulation
-from jrc_tpu.ops.encoder import FrameSpec
-from jrc_tpu.ops.precoder import signal_field_symbols
+from jrc.config import MCS, PacketType
+from jrc.ops import coding, modulation
+from jrc.ops.encoder import FrameSpec
+from jrc.ops.precoder import signal_field_symbols
 
 
 def test_scrambler_sequence_seed1_hand_trace():
@@ -84,7 +84,7 @@ def test_sig_field_qpsk34_len68_hand_trace():
     np.testing.assert_allclose(got, expected_syms.astype(np.complex64))
 
     # and the receiver-side parse must invert the hand-assembled layout
-    from jrc_tpu.ops.precoder import SIG_RATE_TO_MCS, parse_signal_field_bits
+    from jrc.ops.precoder import SIG_RATE_TO_MCS, parse_signal_field_bits
 
     bitmap, ptype, length, ok = parse_signal_field_bits(jnp.asarray(header))
     assert int(bitmap) == 0b1110  # header[0:4]=0,1,1,1 read LSB-first

@@ -3,10 +3,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
-from jrc_tpu.models import jrc_trx
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.ops import channel
+from jrc.ops.encoder import FrameSpec, make_payload
+from jrc.models import jrc_trx
 
 CFG = OFDMConfig()
 TARGETS = channel.Targets(ranges=(12.0,), velocities=(0.0,), azimuths=(25.0,), rcs=(10.0,))
@@ -86,7 +86,7 @@ def test_steering_fallback_chain():
     per_sc, mean_q = jrc_trx.select_steering(CFG, st, radar_aided=True,
                                              phased_steering=True, smoothing=False)
     assert per_sc is None
-    from jrc_tpu.ops.precoder import fourier_matrix
+    from jrc.ops.precoder import fourier_matrix
     np.testing.assert_allclose(np.asarray(mean_q), fourier_matrix(4), atol=1e-6)
     # radar valid -> steering vector in column 0
     st = st._replace(radar_valid=jnp.bool_(True), radar_angle=jnp.float32(20.0))

@@ -2,7 +2,7 @@
 behavior, lib/heatmap_plot.cc:130-206 / lib/time_plot.cc:101-141)."""
 import numpy as np
 
-from jrc_tpu.viz.live import LiveHeatmap, LiveTimePlot
+from jrc.viz.live import LiveHeatmap, LiveTimePlot
 
 
 def test_live_heatmap_coalesces_pushes(tmp_path):

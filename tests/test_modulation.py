@@ -1,8 +1,8 @@
 """Constellation map/demap: gr-digital table parity and roundtrips."""
 import numpy as np
 
-from jrc_tpu.config import MCS
-from jrc_tpu.ops import modulation
+from jrc.config import MCS
+from jrc.ops import modulation
 
 
 def test_bpsk_table():
@@ -51,7 +51,7 @@ def test_soft_llr_signs(rng):
     syms = np.asarray(modulation.modulate(vals, MCS.QAM16_1_2))
     llrs = np.asarray(modulation.soft_llr(syms, MCS.QAM16_1_2))
     bits = np.asarray(modulation.hard_decision(syms, MCS.QAM16_1_2))
-    from jrc_tpu.ops.coding import merge_symbols
+    from jrc.ops.coding import merge_symbols
 
     hard_bits = np.asarray(merge_symbols(bits, 4))
     np.testing.assert_array_equal((llrs > 0).astype(np.uint8), hard_bits)

@@ -1,7 +1,6 @@
-"""Multi-host DCN path: 2 localhost processes through jax.distributed.
+"""Multi-host path: 2 localhost processes through jax.distributed.
 
-Executes ``parallel.mesh.init_distributed`` (previously only defined, never
-driven — VERDICT r4 item 3) and the time-block sharded streaming RX over a
+Executes ``parallel.mesh.init_distributed`` and the time-block sharded streaming RX over a
 global mesh whose ppermute halo exchange crosses the process boundary.
 """
 import os
@@ -26,6 +25,7 @@ def test_two_process_distributed_rx():
     # the children pick their own platform/device config; drop any
     # test-harness XLA_FLAGS forcing a different device count
     env.pop("XLA_FLAGS", None)
+    env["JAX_PLATFORMS"] = "cpu"  # children never open a GPU
     procs = [
         subprocess.Popen(
             [sys.executable, SCRIPT,

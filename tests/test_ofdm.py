@@ -2,8 +2,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from jrc_tpu.config import OFDMConfig
-from jrc_tpu.ops import ofdm
+from jrc.config import OFDMConfig
+from jrc.ops import ofdm
 
 
 def test_modulate_demodulate_roundtrip(rng):

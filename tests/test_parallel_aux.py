@@ -3,11 +3,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.parallel import mesh as pmesh
-from jrc_tpu.parallel import batch as pbatch
-from jrc_tpu.utils import state_io
-from jrc_tpu.utils.profiling import Throughput
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.parallel import mesh as pmesh
+from jrc.parallel import batch as pbatch
+from jrc.utils import state_io
+from jrc.utils.profiling import Throughput
 
 CFG = OFDMConfig()
 
@@ -27,16 +27,16 @@ def test_batched_range_angle_maps(rng):
     maps = pbatch.batched_range_angle_maps(m, jnp.asarray(chans))
     assert maps.shape == (8, 512, 128)
     # matches the single-map kernel
-    from jrc_tpu.ops import radar
+    from jrc.ops import radar
 
     one = np.abs(np.asarray(radar.range_angle_map(jnp.asarray(chans[3])))) ** 2
     np.testing.assert_allclose(np.asarray(maps[3]), one, rtol=1e-4, atol=1e-6)
 
 
 def test_batched_rx(rng):
-    from jrc_tpu.models import comm_link, streaming
-    from jrc_tpu.ops import channel
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.models import comm_link, streaming
+    from jrc.ops import channel
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     spec = FrameSpec(MCS.QPSK_1_2, payload_bytes=24, packet_type=PacketType.DATA)
     payload = jnp.asarray(make_payload(spec, bytes([2]) + b"batch"))
@@ -62,7 +62,7 @@ def test_batched_rx(rng):
 
 
 def test_state_checkpoint_roundtrip(tmp_path):
-    from jrc_tpu.models import jrc_trx
+    from jrc.models import jrc_trx
 
     st = jrc_trx.init_state(CFG)
     st = st._replace(radar_angle=jnp.float32(17.5), radar_valid=jnp.bool_(True),
@@ -90,10 +90,10 @@ def test_checkpoint_resume_continues_jrc_loop_bit_exactly(tmp_path):
     """Resume-from-snapshot must be indistinguishable from an uninterrupted
     run: the JRCState npz is the complete cross-dwell state (the reference's
     restart-survivable CSV side files, SURVEY §5)."""
-    from jrc_tpu.models import jrc_trx
-    from jrc_tpu.ops import channel
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
-    from jrc_tpu.config import MCS, PacketType
+    from jrc.models import jrc_trx
+    from jrc.ops import channel
+    from jrc.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, PacketType
 
     targets = channel.Targets((12.0,), (0.0,), (25.0,), (10.0,))
     spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)

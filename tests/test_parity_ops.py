@@ -2,9 +2,9 @@
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import OFDMConfig
-from jrc_tpu.ops import coding, radar
-from jrc_tpu.ops.precoder import assemble_siso_frame
+from jrc.config import OFDMConfig
+from jrc.ops import coding, radar
+from jrc.ops.precoder import assemble_siso_frame
 from tests.golden import golden_interleave
 
 CFG = OFDMConfig()

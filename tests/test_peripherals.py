@@ -5,12 +5,12 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
-from jrc_tpu.utils import logging as jlog
-from jrc_tpu.io.backend import SimTrx, FileTrx
-from jrc_tpu.io.udp import UdpPduSink, UdpPduSource
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.ops import channel
+from jrc.ops.encoder import FrameSpec, make_payload
+from jrc.utils import logging as jlog
+from jrc.io.backend import SimTrx, FileTrx
+from jrc.io.udp import UdpPduSink, UdpPduSource
 
 CFG = OFDMConfig()
 
@@ -48,7 +48,7 @@ def test_comm_log_format(tmp_path):
 
 
 def test_heatmap_render(tmp_path, rng):
-    from jrc_tpu.viz.heatmap import render_heatmap
+    from jrc.viz.heatmap import render_heatmap
 
     m = rng.normal(size=(512, 128)) + 1j * rng.normal(size=(512, 128))
     rb = np.linspace(0, 76.8, 512)
@@ -59,7 +59,7 @@ def test_heatmap_render(tmp_path, rng):
 
 
 def test_timeplot_render(tmp_path):
-    from jrc_tpu.viz.timeplot import TimeSeries
+    from jrc.viz.timeplot import TimeSeries
 
     ts = TimeSeries(window_s=10.0)
     for i in range(50):
@@ -74,8 +74,8 @@ def test_timeplot_render(tmp_path):
 
 def test_sim_trx_radar_alignment():
     """SimTrx closes the radar loop through the backend boundary."""
-    from jrc_tpu.models import comm_link
-    from jrc_tpu.ops import ofdm, radar
+    from jrc.models import comm_link
+    from jrc.ops import ofdm, radar
 
     targets = channel.Targets((10.0,), (0.0,), (15.0,), (10.0,))
     trx = SimTrx(CFG, targets)
@@ -145,7 +145,7 @@ def test_radar_capture_csv_roundtrip(tmp_path):
     bit-exact; format shape checked against the Eigen csv_formatting."""
     import re
 
-    from jrc_tpu.utils.logging import (append_radar_capture_csv,
+    from jrc.utils.logging import (append_radar_capture_csv,
                                        read_radar_capture_csv)
 
     rng = np.random.default_rng(5)

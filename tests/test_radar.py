@@ -4,10 +4,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.ops import channel, radar
-from jrc_tpu.ops.encoder import FrameSpec
-from jrc_tpu.models import radar_chain
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.ops import channel, radar
+from jrc.ops.encoder import FrameSpec
+from jrc.models import radar_chain
 
 CFG = OFDMConfig()
 SPEC = FrameSpec(MCS.QPSK_1_2, payload_bytes=50, packet_type=PacketType.NDP)
@@ -124,8 +124,8 @@ def test_background_record_toggle_clutter_suppression():
     """Reference set_background_record semantics: calibrate the clutter
     buffer with the static scene, freeze it, then a target that appears is
     detected while the static clutter stays suppressed."""
-    from jrc_tpu.models import jrc_trx
-    from jrc_tpu.ops.encoder import make_payload
+    from jrc.models import jrc_trx
+    from jrc.ops.encoder import make_payload
 
     SPEC_D = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
     PAYLOAD_D = jnp.asarray(make_payload(SPEC_D, bytes([2]) + b"clutter test"))
@@ -155,9 +155,9 @@ def test_background_record_toggle_clutter_suppression():
 def test_multi_target_range_angle_estimate():
     """CLEAN-style iteration resolves BOTH simulated targets (the single-
     peak estimator — reference parity — reports only the stronger one)."""
-    from jrc_tpu.models import radar_chain
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
-    from jrc_tpu.config import MCS, PacketType
+    from jrc.models import radar_chain
+    from jrc.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, PacketType
 
     targets = channel.Targets((12.0, 5.0), (0.0, 0.0), (25.0, -20.0),
                               (10.0, 10.0))
@@ -253,7 +253,7 @@ def test_cfar_on_real_radar_map():
     the detector (the synthetic tests above pin the 2-D behavior)."""
     res = _run(channel.Targets((12.0,), (0.0,), (25.0,), (10.0,)),
                noise_var=1e-8)
-    from jrc_tpu.ops import cplx as cx
+    from jrc.ops import cplx as cx
 
     pwr = np.asarray(cx.abs2(res.ra_map))
     cf = radar.cfar_detect(jnp.asarray(pwr), guard=(8, 0), train=(24, 0),
@@ -274,7 +274,7 @@ def test_range_window_suppresses_sidelobes():
     """Aperture taper folded into the range DFT matrix: on a clean
     flat-spectrum point response, hann pushes the first range sidelobe
     from the rectangular −13 dB to below −30 dB, peak within one bin."""
-    from jrc_tpu.ops import cplx as cx
+    from jrc.ops import cplx as cx
 
     tau_bins = 20.25  # off-grid delay so sidelobes are exercised
     sc = np.arange(CFG.fft_len)
@@ -301,7 +301,7 @@ def test_range_window_suppresses_sidelobes():
 
 def test_window_is_parity_neutral_by_default():
     """window=None reproduces the reference-parity map bit-exactly."""
-    from jrc_tpu.ops import cplx as cx
+    from jrc.ops import cplx as cx
 
     rng = np.random.default_rng(0)
     h = (rng.normal(size=(CFG.n_virtual, CFG.fft_len, 2)) @ [1, 1j]

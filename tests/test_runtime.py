@@ -4,7 +4,7 @@ import time
 
 import numpy as np
 
-from jrc_tpu.runtime import IQRing, load_library, mean_power
+from jrc.runtime import IQRing, load_library, mean_power
 
 
 def test_native_library_builds():
@@ -98,11 +98,11 @@ def test_block_streamer_end_to_end():
     import jax.numpy as jnp
 
     jax.config.update("jax_platforms", "cpu")
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.io.stream import BlockStreamer
-    from jrc_tpu.models import comm_link
-    from jrc_tpu.ops import channel
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.io.stream import BlockStreamer
+    from jrc.models import comm_link
+    from jrc.ops import channel
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     cfg = OFDMConfig()
     spec = FrameSpec(MCS.QPSK_1_2, payload_bytes=32, packet_type=PacketType.DATA)
@@ -130,7 +130,7 @@ def test_fallback_ring_preserves_history_across_wrap(monkeypatch):
     """numpy-fallback ring: the consumer's left-history region must survive
     a producer filling the ring to capacity (the native ring reserves it;
     the fallback now does too)."""
-    import jrc_tpu.runtime as rt
+    import jrc.runtime as rt
 
     monkeypatch.setattr(rt, "_lib", None)
     monkeypatch.setattr(rt, "_lib_err", "forced-fallback")
@@ -153,11 +153,11 @@ def test_streamer_flush_drains_multiple_buffered_superblocks():
     the residual tail)."""
     import jax.numpy as jnp
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.io.stream import BlockStreamer
-    from jrc_tpu.models import comm_link
-    from jrc_tpu.ops import channel
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.io.stream import BlockStreamer
+    from jrc.models import comm_link
+    from jrc.ops import channel
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     cfg = OFDMConfig()
     spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=48, packet_type=PacketType.DATA)
@@ -190,11 +190,11 @@ def test_streamer_flush_tail_in_halo_region_and_idempotent():
     dispatches)."""
     import jax.numpy as jnp
 
-    from jrc_tpu.config import MCS, OFDMConfig, PacketType
-    from jrc_tpu.io.stream import BlockStreamer
-    from jrc_tpu.models import comm_link
-    from jrc_tpu.ops import channel
-    from jrc_tpu.ops.encoder import FrameSpec, make_payload
+    from jrc.config import MCS, OFDMConfig, PacketType
+    from jrc.io.stream import BlockStreamer
+    from jrc.models import comm_link
+    from jrc.ops import channel
+    from jrc.ops.encoder import FrameSpec, make_payload
 
     cfg = OFDMConfig()
     spec = FrameSpec(MCS.QPSK_3_4, payload_bytes=48, packet_type=PacketType.DATA)

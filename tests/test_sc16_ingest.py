@@ -9,12 +9,12 @@ fc32) and dequantized on-device at the head of the RX kernel.
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.io.stream import BlockStreamer
-from jrc_tpu.models import comm_link
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
-from jrc_tpu.runtime import IQRing16, SC16_SCALE
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.io.stream import BlockStreamer
+from jrc.models import comm_link
+from jrc.ops import channel
+from jrc.ops.encoder import FrameSpec, make_payload
+from jrc.runtime import IQRing16, SC16_SCALE
 
 CFG = OFDMConfig()
 SPEC = FrameSpec(MCS.QPSK_3_4, payload_bytes=48, packet_type=PacketType.DATA)
@@ -22,7 +22,7 @@ LSB = 1.0 / SC16_SCALE  # one quantization step at full_scale=1.0
 
 
 def _fallback_ring(monkeypatch, capacity, **kw):
-    import jrc_tpu.runtime as rt
+    import jrc.runtime as rt
 
     monkeypatch.setattr(rt, "_lib", None)
     monkeypatch.setattr(rt, "_lib_err", "forced-fallback")

@@ -1,15 +1,15 @@
 """Soft-decision + STA tracking through the PRODUCTION executors
-(VERDICT r3 item 7): the flat-stream, dynamic, and sharded paths accept
+the flat-stream, dynamic, and sharded paths accept
 ``soft=True`` / ``estimator='sta'`` instead of hard-wiring ls/hard.
 """
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.models import comm_link, streaming
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.models import comm_link, streaming
+from jrc.ops import channel
+from jrc.ops.encoder import FrameSpec, make_payload
 
 CFG = OFDMConfig()
 BLOCK_LEN = 1 << 13
@@ -101,7 +101,7 @@ def test_dynamic_executor_soft_and_sta():
 def test_sharded_soft_matches_unsharded():
     """soft=True through the sharded executor: same totals as the flat
     single-device run on the same capture."""
-    from jrc_tpu.parallel import streaming as pstream
+    from jrc.parallel import streaming as pstream
 
     if len(jax.devices()) < 2:
         import pytest

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.ops import channel
-from jrc_tpu.ops.encoder import FrameSpec, make_payload
-from jrc_tpu.models import comm_link, streaming
-from jrc_tpu.parallel import streaming as pstream
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.ops import channel
+from jrc.ops.encoder import FrameSpec, make_payload
+from jrc.models import comm_link, streaming
+from jrc.parallel import streaming as pstream
 
 CFG = OFDMConfig()
 SPEC = FrameSpec(MCS.QPSK_3_4, payload_bytes=64, packet_type=PacketType.DATA)
@@ -95,7 +95,7 @@ def test_owned_frames_not_evicted_by_preblock_trigger():
     windowed per-block detector paths."""
     spec = FrameSpec(MCS.QPSK_1_2, payload_bytes=16, packet_type=PacketType.DATA)
     payload = jnp.asarray(
-        __import__("jrc_tpu.ops.encoder", fromlist=["make_payload"])
+        __import__("jrc.ops.encoder", fromlist=["make_payload"])
         .make_payload(spec, bytes([2]) + b"evict"))
     tx = comm_link.tx_frame(CFG, spec, payload, 1)
     frame = np.asarray(channel.comm_channel(tx.samples, angle_deg=0.0,

@@ -18,9 +18,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from jrc_tpu.config import MCS, OFDMConfig, PacketType
-from jrc_tpu.models import comm_link
-from jrc_tpu.ops import channel, cplx as cx, precoder
+from jrc.config import MCS, OFDMConfig, PacketType
+from jrc.models import comm_link
+from jrc.ops import channel, cplx as cx, precoder
 
 GOLD = np.load(os.path.join(os.path.dirname(__file__), "golden_tx_frames.npz"))
 CFG = OFDMConfig()
@@ -29,7 +29,7 @@ CASES = ["data_fourier", "data_steered_phased", "data_mean_svd",
 
 
 def _spec(name):
-    from jrc_tpu.ops.encoder import FrameSpec
+    from jrc.ops.encoder import FrameSpec
 
     return FrameSpec(
         MCS(int(GOLD[f"{name}_mcs"])),
